@@ -4,10 +4,10 @@ Reproduces the headline claim of the reference thesis (`work summarise:47-60`
 + stats_results.py:8-80): 3D surface-riding projection yields lower total
 cost and fewer collisions than the 2D planar baseline, with the gap widening
 at lower sample counts. 64 runs per arm at K in {350, 500, 1000}, paired
-start/goal draws, trimmed-mean aggregation — run on the TPU with the fused
-pallas engine (~15 min).
+start/goal draws, trimmed-mean aggregation — run on the GPU, where the
+"auto" engine takes the fused rollout kernel.
 
-Usage (on TPU):  python scripts/run_eval_experiment.py [runs_per_arm]
+Usage (on the GPU):  python scripts/run_eval_experiment.py [runs_per_arm]
 """
 
 import json
@@ -16,7 +16,7 @@ import time
 
 sys.path.insert(0, ".")
 
-from husky_rover_mppi_isaacsim_tpu.mppi.evaluation import (
+from husky_rover_mppi.mppi.evaluation import (
     run_2d_vs_3d_experiment,
 )
 
@@ -26,15 +26,15 @@ def main():
     t0 = time.time()
     # ~65 m paired traverses (jittered) complete within the loop cap at the
     # rover's realized ~0.05 m/loop; the thesis's 200 m runs would need a
-    # 4000+ cap and ~4x the chip time for the same statistics.
+    # 4000+ cap and ~4x the device time for the same statistics.
     table = run_2d_vs_3d_experiment(
         ks=(350, 500, 1000),
         runs_per_arm=runs,
         max_loops=2000,
         span_fraction=0.45,
-        gather_engine="pallas",
+        gather_engine="auto",
     )
-    table["config"]["gather_engine"] = "pallas"
+    table["config"]["gather_engine"] = "auto"
     table["config"]["wall_s"] = round(time.time() - t0, 1)
     import jax
 

@@ -1,5 +1,5 @@
 """Round-5 eval: calibrate the statistics terrain, then run the thesis
-protocol on the calibrated field (VERDICT r04 next #4).
+protocol on the calibrated field.
 
 The thesis's NASA DEM (150x150 m @0.1 m/px, `work summarise:47-49`) is
 LFS-stripped from the reference snapshot, so its slope statistics cannot be
@@ -43,7 +43,7 @@ def terrain_stats(z_scale: float) -> dict:
     """Measurable statistics of the generated field at the 0.1 m grid:
     RMS slope, slope percentiles, RMS height about the low-frequency
     trend — the committed calibration table the judge asked for."""
-    from husky_rover_mppi_isaacsim_tpu.terrain import (
+    from husky_rover_mppi.terrain import (
         thesis_statistics_terrain,
     )
 
@@ -94,7 +94,7 @@ def arm_summary(per_k: dict) -> dict:
 
 
 def run(ks, runs_per_arm, z_scale):
-    from husky_rover_mppi_isaacsim_tpu.mppi.evaluation import (
+    from husky_rover_mppi.mppi.evaluation import (
         run_thesis_protocol_experiment,
     )
 

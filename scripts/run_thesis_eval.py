@@ -1,5 +1,5 @@
 """Produce EVAL_r04.json: the thesis's 2D-vs-3D statistics experiment under
-the thesis's OWN protocol (VERDICT r03 missing #1 / next-round #1).
+the thesis's OWN protocol.
 
 Protocol (all matched to the reference, see
 mppi/evaluation.py:run_thesis_protocol_experiment):
@@ -17,7 +17,7 @@ production *wheel* slope critic, which the 2D arm can never use (it degrades
 to body) — quantifying the asymmetric nearest-cell-noise handicap that
 flipped round-3's EVAL.json.
 
-Usage (on TPU):  python scripts/run_thesis_eval.py [runs_per_arm]
+Usage (on the GPU):  python scripts/run_thesis_eval.py [runs_per_arm]
 """
 
 import json
@@ -26,7 +26,7 @@ import time
 
 sys.path.insert(0, ".")
 
-from husky_rover_mppi_isaacsim_tpu.mppi.evaluation import (
+from husky_rover_mppi.mppi.evaluation import (
     run_thesis_protocol_experiment,
 )
 
@@ -38,9 +38,9 @@ def main():
         ks=(350, 500, 1000),
         runs_per_arm=runs,
         max_loops=3500,
-        gather_engine="pallas",
+        gather_engine="auto",
     )
-    table["config"]["gather_engine"] = "pallas"
+    table["config"]["gather_engine"] = "auto"
     import jax
 
     table["config"]["device"] = str(jax.devices()[0])
@@ -53,7 +53,7 @@ def main():
         ks=(500,),
         runs_per_arm=max(16, runs // 4),
         max_loops=3500,
-        gather_engine="pallas",
+        gather_engine="auto",
         slope_critic="wheels",
     )
     table["ablation"] = {

@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from husky_rover_mppi_isaacsim_tpu.terrain.collider import (
+from husky_rover_mppi.terrain.collider import (
     ColliderBuilder,
     ColliderConf,
     ColliderManager,
@@ -89,7 +89,7 @@ def test_manager_merged_mesh():
 
 def test_manager_against_streamer():
     """Collider heights must match the streamer's bilinear surface."""
-    from husky_rover_mppi_isaacsim_tpu.terrain.streaming import (
+    from husky_rover_mppi.terrain.streaming import (
         StreamerConf, TerrainStreamer)
 
     sconf = StreamerConf(block_size=8.0, resolution=0.5, lr_resolution=2.0,

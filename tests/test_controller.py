@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from husky_rover_mppi_isaacsim_tpu.compat import warp_oracle as wo
-from husky_rover_mppi_isaacsim_tpu.core import HeightField
-from husky_rover_mppi_isaacsim_tpu.dynamics import DiffDriveLimits
-from husky_rover_mppi_isaacsim_tpu.mppi import (
+from husky_rover_mppi.compat import warp_oracle as wo
+from husky_rover_mppi.core import HeightField
+from husky_rover_mppi.dynamics import DiffDriveLimits
+from husky_rover_mppi.mppi import (
     ControllerState,
     InputLimits,
     MPPIConfig,
@@ -17,7 +17,7 @@ from husky_rover_mppi_isaacsim_tpu.mppi import (
     kinematic_advance,
     mppi_step,
 )
-from husky_rover_mppi_isaacsim_tpu.terrain import (
+from husky_rover_mppi.terrain import (
     STANDALONE_CRATER_BUMPS,
     as_costmap,
     bump_surface,
@@ -36,55 +36,6 @@ def _small_world(dtype=jnp.float64, grid=200, hw=25.0):
     return hf, cm, z, hw, cm_img
 
 
-def _oracle_step(config, z, hw, cm_img, cm_res, goal, robot, ctrl, noise):
-    """The reference MPPI_step kernel sequence composed from oracle pieces
-    (MPPI_isaac.py:505-752)."""
-    il = config.inputs
-    lim = config.limits
-    u1, u2 = wo.perturb(
-        np.asarray(ctrl.optimal_u1), np.asarray(ctrl.optimal_u2),
-        np.asarray(noise), float(ctrl.std_u1), float(ctrl.std_u2),
-        il.min_u1, il.max_u1, il.min_u2, il.max_u2,
-    )
-    k_r, a_r = config.rollout_lag
-    lin, ang = wo.wheel_lag(
-        u1, u2, float(robot.left_wheel_speed), float(robot.right_wheel_speed),
-        config.robot_radius, lim.v_min, lim.v_max, lim.w_min, lim.w_max,
-        k_r, a_r,
-    )
-    res = 2 * hw / z.shape[0]
-    pos = np.asarray(robot.position)
-    heading = np.asarray(robot.heading)
-    trajs = []
-    lws = []
-    rws = []
-    for t in range(config.num_samples):
-        tr, _, lw, rw = wo.rollout_25d(z, -hw, -hw, res, pos, heading,
-                                       lin[t], ang[t], config.dt)
-        trajs.append(tr)
-        lws.append(lw)
-        rws.append(rw)
-    trajs, lws, rws = np.array(trajs), np.array(lws), np.array(rws)
-    costs = wo.evaluate_trajectories(
-        pos[0], pos[1], np.asarray(goal), trajs, lws, rws, lin, lim.v_max,
-        cm_img, hw, cm_res, config.horizon_m,
-    )
-    w = wo.softmax_weights(costs, config.temperature)
-    opt_u1, opt_u2 = wo.weighted_update(w, u1, u2)
-    k_o, a_o = config.optimal_lag
-    opt_lin, opt_ang = wo.wheel_lag(
-        opt_u1[None], opt_u2[None], float(robot.left_wheel_speed),
-        float(robot.right_wheel_speed), config.robot_radius,
-        lim.v_min, lim.v_max, lim.w_min, lim.w_max, k_o, a_o,
-    )
-    opt_traj, opt_head, _, _ = wo.rollout_25d(
-        z, -hw, -hw, res, pos, heading, opt_lin[0], opt_ang[0], config.dt
-    )
-    return dict(costs=costs, weights=w, opt_u1=opt_u1, opt_u2=opt_u2,
-                opt_lin=opt_lin[0], opt_ang=opt_ang[0], opt_traj=opt_traj,
-                opt_head=opt_head)
-
-
 def test_mppi_step_matches_oracle(rng):
     hf, cm, z, hw, cm_img = _small_world()
     config = MPPIConfig(num_samples=24, horizon=30, exact=True)
@@ -94,7 +45,7 @@ def test_mppi_step_matches_oracle(rng):
     noise = jnp.asarray(rng.normal(size=(2, 24, 30)))
 
     new_ctrl, out = mppi_step(config, hf, cm, goal, robot, ctrl, noise)
-    ref = _oracle_step(config, z, hw, cm_img, float(cm.resolution), goal,
+    ref = wo.mppi_step(config, z, hw, cm_img, float(cm.resolution), goal,
                        robot, ctrl, noise)
 
     np.testing.assert_allclose(np.asarray(out.costs), ref["costs"], rtol=1e-12)

@@ -4,13 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from husky_rover_mppi_isaacsim_tpu.ops.edt import (
+from husky_rover_mppi.ops.edt import (
     chamfer5,
     distance_costmap,
     edt_exact,
     normalize_minmax,
 )
-from husky_rover_mppi_isaacsim_tpu.terrain import (
+from husky_rover_mppi.terrain import (
     as_costmap,
     costmap_750,
     device_costmap,
@@ -105,7 +105,7 @@ def test_chamfer_fallback_weights_match_cv2():
     OpenCV's 5x5 DIST_L2 weights (1.0, 1.4, 2.1969) — the 3x3 set
     (0.955, 1.3693) once sat here and silently diverged ~4.5%."""
     cv2 = pytest.importorskip("cv2")
-    from husky_rover_mppi_isaacsim_tpu.ops.edt import _chamfer5_numpy
+    from husky_rover_mppi.ops.edt import _chamfer5_numpy
 
     rng = np.random.default_rng(7)
     free = (rng.random((48, 48)) > 0.06).astype(np.uint8) * 255
@@ -113,7 +113,7 @@ def test_chamfer_fallback_weights_match_cv2():
     theirs = cv2.distanceTransform(free, cv2.DIST_L2, 5)
     ours = _chamfer5_numpy(free)
     np.testing.assert_allclose(ours, theirs, atol=1e-3)
-    from husky_rover_mppi_isaacsim_tpu import native
+    from husky_rover_mppi import native
 
     if native.available():
         np.testing.assert_allclose(native.chamfer5(free), theirs, atol=1e-3)

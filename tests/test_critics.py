@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from husky_rover_mppi_isaacsim_tpu.compat import warp_oracle as wo
-from husky_rover_mppi_isaacsim_tpu.mppi import (
+from husky_rover_mppi.compat import warp_oracle as wo
+from husky_rover_mppi.mppi import (
     avoid_obstacle_critic,
     avoid_slope_wheels_critic,
     evaluate_trajectories,
@@ -13,7 +13,7 @@ from husky_rover_mppi_isaacsim_tpu.mppi import (
     softmax_weights,
     weighted_update,
 )
-from husky_rover_mppi_isaacsim_tpu.terrain import as_costmap
+from husky_rover_mppi.terrain import as_costmap
 
 
 def _fake_batch(rng, num=16, horizon=40):
@@ -113,7 +113,7 @@ def test_goal_angle_critic_reference_semantics():
     import jax.numpy as jnp
     import numpy as np
 
-    from husky_rover_mppi_isaacsim_tpu.mppi.critics import goal_angle_critic
+    from husky_rover_mppi.mppi.critics import goal_angle_critic
 
     goal = jnp.asarray([0.0, 0.0])
     traj = jnp.asarray(
@@ -136,7 +136,7 @@ def test_path_orientation_critic_reference_semantics():
     import jax.numpy as jnp
     import numpy as np
 
-    from husky_rover_mppi_isaacsim_tpu.mppi.critics import (
+    from husky_rover_mppi.mppi.critics import (
         path_orientation_critic,
     )
 

@@ -4,7 +4,7 @@ persistence, streamer region sampling (terrain/database.py)."""
 import numpy as np
 import pytest
 
-from husky_rover_mppi_isaacsim_tpu.terrain.database import (
+from husky_rover_mppi.terrain.database import (
     BlockDB,
     BlockDBConf,
     decompose_empty_rectangles,
@@ -132,9 +132,9 @@ def test_blockdb_autosave_interval(tmp_path):
 
 @pytest.fixture(scope="module")
 def streamer():
-    from husky_rover_mppi_isaacsim_tpu.terrain.streaming import (
+    from husky_rover_mppi.terrain.streaming import (
         StreamerConf, TerrainStreamer)
-    from husky_rover_mppi_isaacsim_tpu.terrain.craters import CraterSamplerConf
+    from husky_rover_mppi.terrain.craters import CraterSamplerConf
 
     conf = StreamerConf(
         block_size=8.0, resolution=0.5, lr_resolution=2.0, num_blocks=1,
@@ -184,7 +184,7 @@ def test_streamer_crater_db_persistence(streamer, tmp_path):
     # populate a span first so persistence has real payload to carry
     streamer.sample_craters_by_region(-2, 2, -2, 2)
     streamer.save_crater_db(str(tmp_path / "craters"))
-    from husky_rover_mppi_isaacsim_tpu.terrain.streaming import (
+    from husky_rover_mppi.terrain.streaming import (
         StreamerConf, TerrainStreamer)
 
     fresh = TerrainStreamer(streamer.conf, np.zeros((64, 64), np.float32))

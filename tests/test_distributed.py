@@ -29,12 +29,12 @@ import numpy as np
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from husky_rover_mppi_isaacsim_tpu.core import HeightField
-from husky_rover_mppi_isaacsim_tpu.mppi import (
+from husky_rover_mppi.core import HeightField
+from husky_rover_mppi.mppi import (
     ControllerState, MPPIConfig, RobotState, mppi_step,
 )
-from husky_rover_mppi_isaacsim_tpu.parallel.mesh import sharded_mppi_step
-from husky_rover_mppi_isaacsim_tpu.terrain import as_costmap, crater_surface
+from husky_rover_mppi.parallel.mesh import sharded_mppi_step
+from husky_rover_mppi.terrain import as_costmap, crater_surface
 
 dtype = jnp.float64
 hw = 25.0

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from husky_rover_mppi_isaacsim_tpu.compat import warp_oracle as wo
-from husky_rover_mppi_isaacsim_tpu.dynamics import (
+from husky_rover_mppi.compat import warp_oracle as wo
+from husky_rover_mppi.dynamics import (
     DiffDriveLimits,
     inverse_diff_drive,
     wheel_lag_matmul,

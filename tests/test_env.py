@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from husky_rover_mppi_isaacsim_tpu.core import HeightField
-from husky_rover_mppi_isaacsim_tpu.env import (
+from husky_rover_mppi.core import HeightField
+from husky_rover_mppi.env import (
     BlockFrame,
     ClosedLoopConfig,
     RoverParams,
@@ -24,9 +24,9 @@ from husky_rover_mppi_isaacsim_tpu.env import (
     teleport,
     world_to_controller,
 )
-from husky_rover_mppi_isaacsim_tpu.env import rover_sim
-from husky_rover_mppi_isaacsim_tpu.mppi import MPPIConfig
-from husky_rover_mppi_isaacsim_tpu.terrain import as_costmap, crater_surface
+from husky_rover_mppi.env import rover_sim
+from husky_rover_mppi.mppi import MPPIConfig
+from husky_rover_mppi.terrain import as_costmap, crater_surface
 
 
 def _world(dtype=jnp.float32, grid=256, hw=25.0):
@@ -90,7 +90,7 @@ def test_wheel_contact_forces_flat_ground_is_quarter_weight():
 def test_wheel_contact_forces_side_slope_loads_downhill_wheels():
     """Driving along a side slope (+x heading on a surface rising with +y)
     shifts load to the downhill (right, -y) wheels — the measured-contact
-    asymmetry the constant-force model missed (VERDICT r03 weak #5)."""
+    asymmetry the constant-force model missed."""
     hw = 20.0
     n = 64
     ys = jnp.linspace(-hw, hw, n)
@@ -125,7 +125,7 @@ def test_deform_window_asymmetric_sink_on_side_slope():
     """End-to-end: per-wheel measured loads produce deeper sink under the
     downhill track than the uphill one (the asymmetry a constant mass*g/4
     cannot produce)."""
-    from husky_rover_mppi_isaacsim_tpu.physics import (
+    from husky_rover_mppi.physics import (
         DeformationEngine,
         DeformationEngineConf,
     )
@@ -277,7 +277,7 @@ def test_ema_quat_matches_reference_formula():
         s = math.sqrt(sum(v * v for v in q))
         return [v / s for v in q]
 
-    from husky_rover_mppi_isaacsim_tpu.env import ema_quat
+    from husky_rover_mppi.env import ema_quat
 
     rng = np.random.default_rng(3)
     for _ in range(20):

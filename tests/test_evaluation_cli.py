@@ -5,7 +5,7 @@ import json
 import jax.numpy as jnp
 import numpy as np
 
-from husky_rover_mppi_isaacsim_tpu.mppi.evaluation import (
+from husky_rover_mppi.mppi.evaluation import (
     TrajectoryLog,
     compare_populations,
     count_collisions,
@@ -14,7 +14,7 @@ from husky_rover_mppi_isaacsim_tpu.mppi.evaluation import (
     save_trajectory_csv,
     trimmed_mean,
 )
-from husky_rover_mppi_isaacsim_tpu.terrain import as_costmap
+from husky_rover_mppi.terrain import as_costmap
 
 
 def _log(rng, step=1, n=50):
@@ -64,7 +64,7 @@ def test_trimmed_mean_and_population_compare(rng):
 
 
 def test_visualize_smoke(tmp_path, rng):
-    from husky_rover_mppi_isaacsim_tpu.aux.visualize import (
+    from husky_rover_mppi.aux.visualize import (
         cost_to_color_ids,
         plot_closed_loop_run,
         plot_costmap,
@@ -87,7 +87,7 @@ def test_visualize_smoke(tmp_path, rng):
 
 
 def test_cli_sdg_and_closed_loop(tmp_path, monkeypatch):
-    from husky_rover_mppi_isaacsim_tpu.cli import main
+    from husky_rover_mppi.cli import main
 
     monkeypatch.chdir(tmp_path)
     rc = main(["mode=sdg", "sdg.num_images=1",
@@ -133,13 +133,33 @@ def test_cli_sdg_and_closed_loop(tmp_path, monkeypatch):
     assert rc == 0
 
 
+def test_cli_standalone_reports_path_cost(tmp_path, monkeypatch, capsys):
+    """mode=standalone records the driven path and reports the highest
+    costmap cell it entered (> 0.99 is a collision cell)."""
+    import json
+
+    from husky_rover_mppi.cli import main
+
+    monkeypatch.chdir(tmp_path)
+    rc = main([
+        "mode=standalone", "max_loops=8", "mppi.num_samples=32",
+        "mppi.horizon=10", "world.grid_size=128", "world.half_width=25.0",
+        "world.costmap_size=64", "start.x=-10.0", "start.y=-8.0",
+        "goal.x=10.0", "goal.y=8.0",
+    ])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["loops"] == 8 and out["reached"] is False
+    assert 0.0 <= out["max_path_cost"] <= 1.0
+
+
 def test_cli_environment_group_override(tmp_path, monkeypatch, capsys):
     # `environment=<name>` swaps in cfg/environment/<name>.yaml (Hydra-style
     # group override); its world section feeds the built map, while flat
     # world.* overrides still win on top.
     import json
 
-    from husky_rover_mppi_isaacsim_tpu.cli import main
+    from husky_rover_mppi.cli import main
 
     monkeypatch.chdir(tmp_path)
     rc = main([
@@ -155,7 +175,7 @@ def test_cli_environment_group_override(tmp_path, monkeypatch, capsys):
 def test_every_environment_yaml_composes():
     from pathlib import Path
 
-    from husky_rover_mppi_isaacsim_tpu.aux.config import load_config
+    from husky_rover_mppi.aux.config import load_config
 
     env_dir = Path(__file__).parent.parent / "cfg" / "environment"
     names = sorted(p.stem for p in env_dir.glob("*.yaml"))
@@ -168,7 +188,7 @@ def test_every_environment_yaml_composes():
 def test_2d_vs_3d_experiment_table():
     """The experiment driver (compare_3d_2d.py shape): paired arms, per-K
     trimmed-mean table, collision + reached counts."""
-    from husky_rover_mppi_isaacsim_tpu.mppi.evaluation import (
+    from husky_rover_mppi.mppi.evaluation import (
         run_2d_vs_3d_experiment,
     )
 
@@ -191,7 +211,7 @@ def test_2d_vs_3d_experiment_table():
 
 def test_eval_json_artifact():
     """EVAL.json — the committed statistical 2D-vs-3D artifact
-    (scripts/run_eval_experiment.py, 64 runs/arm on the TPU) — carries the
+    (scripts/run_eval_experiment.py, 64 runs/arm) — carries the
     reproducible directional findings: near-universal completion, near-zero
     collision waypoints, and a path-follow advantage for 3D that grows as K
     falls (the thesis's trend, stats_results.py:8-80). The episode-level
@@ -226,7 +246,7 @@ def test_thesis_rescore_semantics(rng):
     (critics_warp.py:256-265 commented block + evaluate_trajectory.py):
     path-length distance, bucketed obstacle near-miss costs, collision
     flag on any >0.99 cell, drop-first-waypoint."""
-    from husky_rover_mppi_isaacsim_tpu.mppi.evaluation import (
+    from husky_rover_mppi.mppi.evaluation import (
         path_length,
         thesis_rescore,
         trim_greatest,
@@ -270,7 +290,7 @@ def test_thesis_protocol_experiment_structure():
     """Tiny-scale structural run of the thesis-protocol driver: paired
     arms, per-critic table, arm diagnostics (the full-scale statistical
     artifact is EVAL_r04.json, produced on chip)."""
-    from husky_rover_mppi_isaacsim_tpu.mppi.evaluation import (
+    from husky_rover_mppi.mppi.evaluation import (
         run_thesis_protocol_experiment,
     )
 
@@ -340,7 +360,7 @@ def test_eval_r04_artifact_thesis_direction():
 def test_physics_rover_config_wired():
     """cfg physics.rover/dt/gravity reach ClosedLoopConfig.rover (the
     reference's default_physics.yaml -> RoverParams wiring)."""
-    from husky_rover_mppi_isaacsim_tpu.cli import _rover_params
+    from husky_rover_mppi.cli import _rover_params
 
     rp = _rover_params({"physics": {
         "dt": 0.02, "gravity": [0.0, 0.0, -1.62],
@@ -349,7 +369,7 @@ def test_physics_rover_config_wired():
     assert rp.track == 1.5 and rp.mass == 50.0
     assert rp.physics_dt == 0.02 and rp.gravity == 1.62
     # defaults when the group is absent
-    from husky_rover_mppi_isaacsim_tpu.env.rover_sim import RoverParams
+    from husky_rover_mppi.env.rover_sim import RoverParams
 
     assert _rover_params({}) == RoverParams()
 
@@ -359,7 +379,7 @@ def test_eval_r05_artifact_calibrated_direction():
     CALIBRATED field (z_scale 0.7, picked by the EVAL_R05_CALIB.json
     sweep; terrain stats recorded in-artifact) — pins the thesis's
     directional claims across EVERY K, including the low-K points that
-    resisted round 4 (VERDICT r04 next #4):
+    resisted round 4:
 
     * safety: 3D collides less than 2D at every K in {350, 500, 1000}
       and completes at least as many runs at every K (the thesis's

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from husky_rover_mppi_isaacsim_tpu.compat import warp_oracle as wo
-from husky_rover_mppi_isaacsim_tpu.core import (
+from husky_rover_mppi.compat import warp_oracle as wo
+from husky_rover_mppi.core import (
     HeightField,
     bilinear,
     corner_cell,
@@ -15,7 +15,7 @@ from husky_rover_mppi_isaacsim_tpu.core import (
     quad_normal,
     tangent_project,
 )
-from husky_rover_mppi_isaacsim_tpu.terrain import bump_surface
+from husky_rover_mppi.terrain import bump_surface
 
 
 def _make_hf(grid=64, half_width=8.0, seed=0):
@@ -103,7 +103,7 @@ def test_out_of_window_clamps():
 
 
 def test_bump_surface_matches_numpy_reference():
-    from husky_rover_mppi_isaacsim_tpu.compat import numpy_oracle as no
+    from husky_rover_mppi.compat import numpy_oracle as no
 
     bumps = no.REFERENCE_BUMPS
     z_jax = np.asarray(bump_surface(128, 20.0, bumps, dtype=jnp.float64))

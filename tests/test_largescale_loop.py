@@ -9,20 +9,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from husky_rover_mppi_isaacsim_tpu.core import heightfield as hfield
-from husky_rover_mppi_isaacsim_tpu.env import frames
-from husky_rover_mppi_isaacsim_tpu.env.closed_loop import ClosedLoopConfig
-from husky_rover_mppi_isaacsim_tpu.env.largescale_loop import (
+from husky_rover_mppi.core import heightfield as hfield
+from husky_rover_mppi.env import frames
+from husky_rover_mppi.env.closed_loop import ClosedLoopConfig
+from husky_rover_mppi.env.largescale_loop import (
     LargeScaleClosedLoop,
     LargeScaleLoopConf,
 )
-from husky_rover_mppi_isaacsim_tpu.env.rover_sim import RoverParams
-from husky_rover_mppi_isaacsim_tpu.mppi.controller import MPPIConfig
-from husky_rover_mppi_isaacsim_tpu.physics.deformation import (
+from husky_rover_mppi.env.rover_sim import RoverParams
+from husky_rover_mppi.mppi.controller import MPPIConfig
+from husky_rover_mppi.physics.deformation import (
     DeformationEngineConf,
 )
-from husky_rover_mppi_isaacsim_tpu.terrain.orchestrator import LargeScaleConf
-from husky_rover_mppi_isaacsim_tpu.terrain.rocks import RockDistConf
+from husky_rover_mppi.terrain.orchestrator import LargeScaleConf
+from husky_rover_mppi.terrain.rocks import RockDistConf
 
 
 def tiny_terrain(**kw):
@@ -166,7 +166,7 @@ def test_prestaged_costmap_matches_synchronous_rebuild():
     catches boundary crossings) and every staged costmap is bit-identical
     to the synchronous rebuild at the same anchor (asserted in-loop via
     verify_prestage) — the correctness contract of hiding the shift latency
-    (high_resolution_DEM_workers.py:199-765 role; VERDICT r03 #2)."""
+    (high_resolution_DEM_workers.py:199-765 role)."""
     conf = loop_conf(
         loop=ClosedLoopConfig(mppi=MPPIConfig(num_samples=128, horizon=50)),
         goal=(32.0, 5.0),
@@ -219,7 +219,7 @@ def test_cli_largescale_mode(tmp_path, capsys):
     import json
     import yaml
 
-    from husky_rover_mppi_isaacsim_tpu import cli
+    from husky_rover_mppi import cli
 
     cfg = {
         "mode": "largescale",
@@ -267,7 +267,7 @@ def test_reference_scale_window_builds():
     scale — 25 m blocks @2.5 cm/px, num_blocks=2 => a 7000^2-px window and
     an 875^2 costmap (visual_terrain_stack_full_terrain.py:424-426,
     151-203) — and the streamed window survives a full block shift."""
-    from husky_rover_mppi_isaacsim_tpu.terrain.orchestrator import (
+    from husky_rover_mppi.terrain.orchestrator import (
         LargeScaleTerrainManager,
     )
 
@@ -368,7 +368,7 @@ def test_roll_pass_counts_follows_window():
     """Deformation pass counts roll with the window on a shift: carried
     pixels keep their counts, the newly-exposed band resets (VERDICT r02
     weak #7 / deformation_engine.py:695-721 decay semantics)."""
-    from husky_rover_mppi_isaacsim_tpu.env.largescale_loop import (
+    from husky_rover_mppi.env.largescale_loop import (
         _roll_pass_counts,
     )
 
@@ -404,4 +404,23 @@ def test_pipelined_worker_error_surfaces():
 
     loop.lstm.update_visual_mesh = boom
     with pytest.raises(RuntimeError, match="cascade exploded"):
+        loop.run(record_path=False)
+
+
+def test_sync_prestage_error_surfaces():
+    """A failure inside the synchronous path's background staging thread is
+    kept and raised at the next crossing, not swallowed."""
+    conf = loop_conf(
+        loop=ClosedLoopConfig(mppi=MPPIConfig(num_samples=32, horizon=16)),
+        goal=(40.0, 5.0),
+        max_steps=600,
+        pipeline_depth=0,
+    )
+    loop = LargeScaleClosedLoop(conf)
+
+    def boom(*_a):
+        raise RuntimeError("staging exploded")
+
+    loop._quantized_update_pos = boom
+    with pytest.raises(RuntimeError, match="staging exploded"):
         loop.run(record_path=False)

@@ -5,8 +5,8 @@ import struct
 import numpy as np
 import pytest
 
-from husky_rover_mppi_isaacsim_tpu.terrain import map_manager as mm
-from husky_rover_mppi_isaacsim_tpu.terrain.streaming import StreamerConf
+from husky_rover_mppi.terrain import map_manager as mm
+from husky_rover_mppi.terrain.streaming import StreamerConf
 
 
 def _write_minimal_tiff(path, arr):

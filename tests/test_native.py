@@ -1,10 +1,10 @@
 """Native C++ host runtime: EDT/chamfer oracles, bicubic twin, codec,
-thread-pool tile runner (husky_rover_mppi_isaacsim_tpu/native)."""
+thread-pool tile runner (husky_rover_mppi/native)."""
 
 import numpy as np
 import pytest
 
-from husky_rover_mppi_isaacsim_tpu import native
+from husky_rover_mppi import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason=f"native build unavailable: {native.build_error()}"
@@ -31,7 +31,7 @@ def test_edt_exact_vs_bruteforce(rng):
 
 
 def test_edt_matches_jax_ops(rng):
-    from husky_rover_mppi_isaacsim_tpu.ops.edt import edt_exact
+    from husky_rover_mppi.ops.edt import edt_exact
 
     occ = rng.random((96, 64)) < 0.02
     occ[0, 0] = True
@@ -51,7 +51,7 @@ def test_edt_squared(rng):
 def test_chamfer5_matches_python_reference(rng):
     """The C++ chamfer must agree with the (slow) NumPy raster-scan fallback
     in ops/edt.py — both implement cv2's DIST_L2 5x5 weights."""
-    from husky_rover_mppi_isaacsim_tpu.ops import edt as edt_mod
+    from husky_rover_mppi.ops import edt as edt_mod
 
     free = (rng.random((24, 30)) >= 0.05).astype(np.uint8)
     free[10, 12] = 0
@@ -66,7 +66,7 @@ def test_chamfer5_matches_python_reference(rng):
 
 
 def test_bicubic_matches_jax_kernel(rng):
-    from husky_rover_mppi_isaacsim_tpu.terrain.upsample import upsample_bicubic
+    from husky_rover_mppi.terrain.upsample import upsample_bicubic
 
     src = rng.normal(size=(12, 17)).astype(np.float32)
     for factor in (2, 4, 5):
@@ -101,7 +101,7 @@ def test_codec_rejects_bad_tolerance():
 
 
 def test_tile_pool_bicubic_batch(rng):
-    from husky_rover_mppi_isaacsim_tpu.terrain.upsample import upsample_bicubic
+    from husky_rover_mppi.terrain.upsample import upsample_bicubic
 
     srcs = [rng.normal(size=(10, 10)).astype(np.float32) for _ in range(12)]
     refs = [np.asarray(upsample_bicubic(s, 3)) for s in srcs]
@@ -134,7 +134,7 @@ def test_tile_pool_clean_shutdown_with_pending_results(rng):
 
 
 def test_rockdb_uses_native_codec():
-    from husky_rover_mppi_isaacsim_tpu.terrain.rocks import RockBlock, RockDB
+    from husky_rover_mppi.terrain.rocks import RockBlock, RockDB
 
     rng = np.random.default_rng(3)
     block = RockBlock(
@@ -156,12 +156,12 @@ def test_rockdb_uses_native_codec():
 def test_streamer_consumes_tile_pool(rng):
     """The TilePool is a real pipeline component: on the CPU backend the
     streamer's batched block builds route bicubic upsamples through the C++
-    pool (VERDICT r03 weak #4 — consumer, not a standalone demo), and the
+    pool, and the
     resulting window matches the pure-device path to bicubic parity
     (atol 1e-5/element)."""
     import jax.numpy as jnp
 
-    from husky_rover_mppi_isaacsim_tpu.terrain.streaming import (
+    from husky_rover_mppi.terrain.streaming import (
         StreamerConf,
         TerrainStreamer,
     )

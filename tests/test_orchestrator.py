@@ -4,11 +4,11 @@
 import numpy as np
 import pytest
 
-from husky_rover_mppi_isaacsim_tpu.terrain.orchestrator import (
+from husky_rover_mppi.terrain.orchestrator import (
     LargeScaleConf,
     LargeScaleTerrainManager,
 )
-from husky_rover_mppi_isaacsim_tpu.terrain.rocks import RockDistConf
+from husky_rover_mppi.terrain.rocks import RockDistConf
 
 
 def tiny_conf(**kw):
@@ -139,7 +139,7 @@ def test_current_block_coordinates(lstm):
 
 
 def test_collider_lazy_defers_builds_to_export():
-    """collider_lazy (the TPU-design default): the cascade skips collider
+    """collider_lazy (the default): the cascade skips collider
     mesh builds (no PhysX consumer; they cost height-query round-trips per
     2 m) and ensure_colliders() brings the window up to date on demand."""
     mgr = LargeScaleTerrainManager(tiny_conf(collider_lazy=True))

@@ -7,26 +7,26 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from husky_rover_mppi_isaacsim_tpu.core import (
+from husky_rover_mppi.core import (
     HeightField,
     extract_grid_patch,
     extract_patch,
     grid_lookup,
 )
-from husky_rover_mppi_isaacsim_tpu.core import heightfield as hfield
-from husky_rover_mppi_isaacsim_tpu.core import patch as patch_mod
-from husky_rover_mppi_isaacsim_tpu.mppi import (
+from husky_rover_mppi.core import heightfield as hfield
+from husky_rover_mppi.core import patch as patch_mod
+from husky_rover_mppi.mppi import (
     ControllerState,
     MPPIConfig,
     RobotState,
     mppi_step,
     sample_noise,
 )
-from husky_rover_mppi_isaacsim_tpu.mppi.critics import (
+from husky_rover_mppi.mppi.critics import (
     Costmap,
     avoid_obstacle_critic,
 )
-from husky_rover_mppi_isaacsim_tpu.mppi.rollout import rollout_25d, rollout_2d
+from husky_rover_mppi.mppi.rollout import rollout_25d, rollout_2d
 
 
 def _world(rng, grid=512, hw=25.0, dtype=jnp.float32):
@@ -235,8 +235,7 @@ def test_invalid_gather_engine_rejected():
 
 def test_undersized_patch_raises_not_clamps(rng):
     """A patch that cannot cover the horizon reach must fail loudly at trace
-    time — the one-hot engine clamps escaping lookups silently otherwise
-    (VERDICT r02 weak #2)."""
+    time — the one-hot engine clamps escaping lookups silently otherwise."""
     dtype = jnp.float32
     hf = _world(rng, grid=512, hw=25.0, dtype=dtype)
     cm = Costmap(
@@ -262,7 +261,7 @@ def test_undersized_patch_raises_not_clamps(rng):
 
 def test_split3_reconstructs_bitwise(rng):
     """The 3-way bf16 split is an exact decomposition of float32."""
-    from husky_rover_mppi_isaacsim_tpu.core.patch import split3
+    from husky_rover_mppi.core.patch import split3
 
     z = jnp.asarray(
         rng.standard_normal((128, 128)).astype(np.float32) * 1e3)

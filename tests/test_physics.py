@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from husky_rover_mppi_isaacsim_tpu.physics import (
+from husky_rover_mppi.physics import (
     BoundaryDistributionConf,
     DeformationEngine,
     DeformationEngineConf,
@@ -127,7 +127,7 @@ def test_terramechanics_quadrature_converges():
         return (t.c + sigma * np.tan(t.phi)) * (1 - np.exp(-j / t.K))
 
     ref, _ = integ.quad(tau_lower, theta_m, theta_f)
-    from husky_rover_mppi_isaacsim_tpu.physics.terramechanics import _integrate
+    from husky_rover_mppi.physics.terramechanics import _integrate
 
     got = float(_integrate(
         lambda th: solver._tau(

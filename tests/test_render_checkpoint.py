@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from husky_rover_mppi_isaacsim_tpu.aux import (
+from husky_rover_mppi.aux import (
     ChromaticAberrationsConf,
     FlaresConf,
     MotionBlurConf,
@@ -19,7 +19,7 @@ from husky_rover_mppi_isaacsim_tpu.aux import (
     lens_flare,
     motion_blur,
 )
-from husky_rover_mppi_isaacsim_tpu.aux.render_fx import starburst_kernel
+from husky_rover_mppi.aux.render_fx import starburst_kernel
 
 
 def _test_image(h=64, w=64):
@@ -113,13 +113,13 @@ def test_apply_post_fx_pipeline_respects_enables():
 
 
 def test_checkpoint_roundtrip_loop_state(tmp_path):
-    from husky_rover_mppi_isaacsim_tpu.core import HeightField
-    from husky_rover_mppi_isaacsim_tpu.env import (
+    from husky_rover_mppi.core import HeightField
+    from husky_rover_mppi.env import (
         ClosedLoopConfig,
         RoverState,
         init_loop_state,
     )
-    from husky_rover_mppi_isaacsim_tpu.terrain import crater_surface
+    from husky_rover_mppi.terrain import crater_surface
 
     hf = HeightField.create(
         crater_surface(64, 8.0, [((1.0, 1.0), 1.0, 2.0)], dtype=jnp.float32),
@@ -158,7 +158,7 @@ def test_cli_rendering_group_drives_sdg_postfx(tmp_path, capsys):
     import numpy as np
     import yaml
 
-    from husky_rover_mppi_isaacsim_tpu import cli
+    from husky_rover_mppi import cli
 
     def run(rendering, out_dir):
         cfg = {

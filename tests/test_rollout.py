@@ -4,11 +4,11 @@ thesis NumPy reference implementation."""
 import jax.numpy as jnp
 import numpy as np
 
-from husky_rover_mppi_isaacsim_tpu.compat import numpy_oracle as no
-from husky_rover_mppi_isaacsim_tpu.compat import warp_oracle as wo
-from husky_rover_mppi_isaacsim_tpu.core import HeightField
-from husky_rover_mppi_isaacsim_tpu.mppi import rollout_25d, rollout_2d
-from husky_rover_mppi_isaacsim_tpu.terrain import bump_surface
+from husky_rover_mppi.compat import numpy_oracle as no
+from husky_rover_mppi.compat import warp_oracle as wo
+from husky_rover_mppi.core import HeightField
+from husky_rover_mppi.mppi import rollout_25d, rollout_2d
+from husky_rover_mppi.terrain import bump_surface
 
 
 def _setup(grid=256, half_width=20.0):
@@ -79,7 +79,7 @@ def test_rodrigues_equals_scipy_rotvec(rng):
 def test_reference_rollout_bitmatches_thesis_oracle():
     """BASELINE bit-match contract: the thesis-convention JAX rollout equals
     ``python_mppi_projection`` trajectories at fixed inputs (float64)."""
-    from husky_rover_mppi_isaacsim_tpu.mppi import rollout_25d_reference
+    from husky_rover_mppi.mppi import rollout_25d_reference
 
     grid, hw = 400, 20.0
     z = np.asarray(bump_surface(grid, hw, no.REFERENCE_BUMPS, dtype=jnp.float64))
@@ -105,7 +105,7 @@ def test_warp_vs_thesis_convention_agreement():
     """The production (Warp-convention) and thesis-convention rollouts follow
     the same dynamics; on a smooth surface they stay within a few grid cells
     over a 6 s horizon (they sample different cells by construction)."""
-    from husky_rover_mppi_isaacsim_tpu.mppi import rollout_25d_reference
+    from husky_rover_mppi.mppi import rollout_25d_reference
 
     grid, hw = 400, 20.0
     z = np.asarray(bump_surface(grid, hw, no.REFERENCE_BUMPS, dtype=jnp.float64))

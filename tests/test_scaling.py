@@ -5,19 +5,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from husky_rover_mppi_isaacsim_tpu.core import HeightField
-from husky_rover_mppi_isaacsim_tpu.mppi import (
+from husky_rover_mppi.core import HeightField
+from husky_rover_mppi.mppi import (
     ControllerState,
     MPPIConfig,
     RobotState,
     mppi_step,
 )
-from husky_rover_mppi_isaacsim_tpu.parallel.scaling import (
+from husky_rover_mppi.parallel.scaling import (
     rover_sample_mesh,
     scaling_sweep,
     sharded_multi_rover_step,
 )
-from husky_rover_mppi_isaacsim_tpu.terrain import as_costmap, crater_surface
+from husky_rover_mppi.terrain import as_costmap, crater_surface
 
 
 def _world(dtype=jnp.float64, hw=25.0):
@@ -87,7 +87,7 @@ def test_scaling_sweep_persists_report():
     import multiprocessing
     from pathlib import Path
 
-    from husky_rover_mppi_isaacsim_tpu.parallel.scaling import (
+    from husky_rover_mppi.parallel.scaling import (
         write_scaling_report,
     )
 
@@ -125,7 +125,7 @@ def test_write_scaling_report_ratchet_semantics(tmp_path):
     and surfaces a regressed re-run in the artifact (ADVICE r04)."""
     import json
 
-    from husky_rover_mppi_isaacsim_tpu.parallel.scaling import (
+    from husky_rover_mppi.parallel.scaling import (
         write_scaling_report,
     )
 

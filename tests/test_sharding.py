@@ -4,19 +4,19 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from husky_rover_mppi_isaacsim_tpu.core import HeightField
-from husky_rover_mppi_isaacsim_tpu.mppi import (
+from husky_rover_mppi.core import HeightField
+from husky_rover_mppi.mppi import (
     ControllerState,
     MPPIConfig,
     RobotState,
     mppi_step,
 )
-from husky_rover_mppi_isaacsim_tpu.parallel import (
+from husky_rover_mppi.parallel import (
     make_mesh,
     shard_samples,
     sharded_mppi_step,
 )
-from husky_rover_mppi_isaacsim_tpu.terrain import as_costmap, crater_surface
+from husky_rover_mppi.terrain import as_costmap, crater_surface
 
 
 def test_eight_virtual_devices():

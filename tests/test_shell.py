@@ -9,14 +9,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from husky_rover_mppi_isaacsim_tpu.core import HeightField
-from husky_rover_mppi_isaacsim_tpu.env import (
+from husky_rover_mppi.core import HeightField
+from husky_rover_mppi.env import (
     RobotManager,
     RoverParams,
     contact_forces,
     rover_sim,
 )
-from husky_rover_mppi_isaacsim_tpu.shell import (
+from husky_rover_mppi.shell import (
     MessageBus,
     Rate,
     SimulationManager,
@@ -24,7 +24,7 @@ from husky_rover_mppi_isaacsim_tpu.shell import (
     ThreadMonitor,
     Topics,
 )
-from husky_rover_mppi_isaacsim_tpu.terrain import as_costmap, crater_surface
+from husky_rover_mppi.terrain import as_costmap, crater_surface
 
 
 def _world(grid=64, hw=10.0):

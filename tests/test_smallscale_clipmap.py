@@ -4,14 +4,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from husky_rover_mppi_isaacsim_tpu.terrain.clipmap import (
+from husky_rover_mppi.terrain.clipmap import (
     Clipmap,
     ClipmapSpec,
     NestedClipmap,
     build_lod_pyramid,
     build_ring_layout,
 )
-from husky_rover_mppi_isaacsim_tpu.terrain.smallscale import (
+from husky_rover_mppi.terrain.smallscale import (
     BaseTerrainGeneratorConf,
     MoonyardConf,
     MoonyardGenerator,
@@ -102,7 +102,7 @@ def test_lod_pyramid_and_clipmap_sampling(rng):
 
 
 def test_nested_clipmap_rock_query(rng):
-    from husky_rover_mppi_isaacsim_tpu.core import HeightField
+    from husky_rover_mppi.core import HeightField
 
     z = jnp.asarray(rng.normal(size=(128, 128)) * 0.05)
     fine = Clipmap(ClipmapSpec(num_lods=2, ring_size=4, resolution=0.1), z,
@@ -124,8 +124,8 @@ def test_nested_clipmap_rock_query(rng):
 def test_moonyard_non_square_lab():
     # Regression: the 9.6 x 6.4 m lunalab (first non-square yard) must
     # compose base noise + square-rendered crater block without shape errors.
-    from husky_rover_mppi_isaacsim_tpu.terrain.craters import CraterSamplerConf
-    from husky_rover_mppi_isaacsim_tpu.terrain.smallscale import (
+    from husky_rover_mppi.terrain.craters import CraterSamplerConf
+    from husky_rover_mppi.terrain.smallscale import (
         BaseTerrainGeneratorConf,
         MoonyardConf,
         MoonyardGenerator,

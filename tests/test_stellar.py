@@ -26,7 +26,7 @@ import math
 
 import numpy as np
 
-from husky_rover_mppi_isaacsim_tpu.aux.stellar import (
+from husky_rover_mppi.aux.stellar import (
     StellarEngine,
     StellarEngineConf,
     _moon_ecliptic,

@@ -6,25 +6,25 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from husky_rover_mppi_isaacsim_tpu.core import HeightField
-from husky_rover_mppi_isaacsim_tpu.terrain import point_process as pp
-from husky_rover_mppi_isaacsim_tpu.terrain.craters import (
+from husky_rover_mppi.core import HeightField
+from husky_rover_mppi.terrain import point_process as pp
+from husky_rover_mppi.terrain.craters import (
     CraterSamplerConf,
     build_profiles,
     randomize_metadata,
     render_crater_block,
 )
-from husky_rover_mppi_isaacsim_tpu.terrain.rocks import (
+from husky_rover_mppi.terrain.rocks import (
     RockDistConf,
     RockSampler,
     rocks_to_obstacles,
     surface_orientation,
 )
-from husky_rover_mppi_isaacsim_tpu.terrain.streaming import (
+from husky_rover_mppi.terrain.streaming import (
     StreamerConf,
     TerrainStreamer,
 )
-from husky_rover_mppi_isaacsim_tpu.terrain.upsample import (
+from husky_rover_mppi.terrain.upsample import (
     bicubic_point_sample,
     bilinear_point_sample,
     upsample_bicubic,
@@ -419,7 +419,7 @@ def test_hardcore_binned_matches_dense(rng):
     allocated GBs at reference scale — VERDICT r03 weak #6)."""
     import numpy as np
 
-    from husky_rover_mppi_isaacsim_tpu.terrain import point_process as pp
+    from husky_rover_mppi.terrain import point_process as pp
 
     def dense_hardcore(r, coords, radius):
         mark = r.uniform(0, 1, coords.shape[0])
@@ -461,7 +461,7 @@ def test_window_normal_horizontal_components_follow_slope():
     """Regression: the window quad normal must tilt AGAINST the gradient in
     the matching world axis — a +x slope gives nx < 0 with ny = 0 (the
     [row = x, col = y] window layout; components were once swapped)."""
-    from husky_rover_mppi_isaacsim_tpu.terrain.streaming import _window_normal
+    from husky_rover_mppi.terrain.streaming import _window_normal
 
     xs = np.arange(16, dtype=np.float32)
     x_slope = jnp.asarray(xs[:, None] * np.ones((1, 16), np.float32))

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from husky_rover_mppi_isaacsim_tpu import worldbuilders as wb
+from husky_rover_mppi import worldbuilders as wb
 
 
 def test_uniform_plane():
